@@ -1,22 +1,17 @@
-"""dsm-tpu benchmark — one JSON line for the driver.
+"""dsm-tpu benchmark — one JSON line (a stopgap until a benchmark with
+cells, repeats and per-layer attribution replaces it).
 
-Measures the headline metric from BASELINE.json: substrings (union-trie
-paths) enumerated per second on a 5-sample mining run with the production
-config (fmin=2, emax=1.2 — wrapper-SLURM defaults), end to end on the
-accelerator JAX selects (the real TPU chip under the driver; CPU when
-forced).
-
-vs_baseline compares against the reference C++ pipeline (builder +
-4x metaserver + 5x metaenumerate on localhost, the wrapper-SLURM
-production topology) running the IDENTICAL dataset and config on this
-machine's CPU.  The reference is compiled on demand into /tmp/refsrc-bench
-(cached); if the toolchain or sources are unavailable the frozen
-measurement in BENCH_BASELINE.json is used instead and noted in the
-"baseline" field.
+Measures substrings (union-trie paths) enumerated per second on a
+5-sample mining run with the production config (fmin=2, emax=1.2 —
+wrapper-SLURM defaults), end to end on the GPU.  It refuses to run
+without one.  Every run checks the gnu-order output bytes against the
+frozen digest of the reference servers' output (tests/golden/), and,
+when compiled reference binaries are available (DSM_REF_BIN), also
+times the reference pipeline on the same data.
 
 Scale knobs (env):
   DSM_BENCH_SCALE   dataset scale factor (default 100; toydata is scale 1)
-  DSM_BENCH_SKIP_REF=1  never run the live reference (use frozen baseline)
+  DSM_BENCH_SKIP_REF=1  never run the live reference
 """
 
 from __future__ import annotations
@@ -34,10 +29,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 SCALE = int(os.environ.get("DSM_BENCH_SCALE", "100"))
-WORK = f"/tmp/dsm_tpu_bench_s{SCALE}"
+WORK = os.path.join(HERE, "_work", f"bench_s{SCALE}")
 REF_SRC = "/root/reference"
-REF_BIN = os.environ.get("DSM_REF_BIN", "/tmp/refsrc-bench")
-BASELINE_FILE = os.path.join(HERE, "BENCH_BASELINE.json")
+# the reference is compiled into the checkout (gitignored), never into a
+# directory another checkout could share
+REF_BIN = (os.environ.get("DSM_REF_BIN")
+           or os.path.join(HERE, ".cache", "refsrc"))
+GOLDEN_FILE = os.path.join(HERE, "tests", "golden", "scale100_gnu.json")
 
 # production mining config (wrapper-SLURM/client-wrapper.sh --fmin 2,
 # example-server.sh ENTROPY_CUTOFF=1.2)
@@ -54,28 +52,25 @@ def make_dataset() -> list[str]:
     marker = os.path.join(datadir, ".complete")
     paths = [os.path.join(datadir, f"toy{s}.fasta") for s in range(5)]
     if not os.path.exists(marker):
-        from tests.make_toydata import make_toydata
+        from chip_smoke import toydata
 
         os.makedirs(datadir, exist_ok=True)
-        make_toydata(datadir, scale=SCALE)
+        toydata().make_toydata(datadir, scale=SCALE)
         open(marker, "w").close()
     return paths
 
 
 def build_indexes(fastas: list[str]):
-    import jax
-
     from dsm_tpu.index.alphabet import transform
     from dsm_tpu.index.fasta import read_fasta
     from dsm_tpu.index.fmindex import FMIndex
 
-    # construction runs on-accelerator (prefix-doubling over lax.sort,
-    # ops/sa.py); the host path is the small-input/CI fallback.
-    # index_build_s is ALWAYS a fresh measurement (VERDICT r3 #4: a
-    # cache hit must never report 0.0): the first sample is rebuilt
-    # from scratch every run; when the rest are cache hits the total is
+    # construction runs on the device (prefix-doubling over lax.sort,
+    # ops/sa.py).  index_build_s is ALWAYS a fresh measurement (a cache
+    # hit must never report 0.0): the first sample is rebuilt from
+    # scratch every run; when the rest are cache hits the total is
     # extrapolated by symbol count and labelled as such.
-    backend = "numpy" if jax.default_backend() == "cpu" else "jax"
+    backend = "jax"
     idxs, timed, syms_timed = [], 0.0, 0
     fresh_all = True
     for i, path in enumerate(fastas):
@@ -90,8 +85,8 @@ def build_indexes(fastas: list[str]):
                                  sa_backend=backend)
         dt = time.perf_counter() - t0
         if i == 0:
-            # steady state: the first build may eat a (remote) XLA
-            # compile or a cold device; a second build of the same
+            # steady state: the first build may eat an XLA compile or a
+            # cold device; a second build of the same
             # sample measures the production rate — take the faster
             t1 = time.perf_counter()
             FMIndex.from_texts(texts, names=[os.path.basename(path)],
@@ -154,81 +149,6 @@ def bench_backward_search_steps(idxs) -> float:
     return Q * ITERS / dt
 
 
-def run_scaling_block(scaling_scale: int) -> dict:
-    """Correctness + throughput of the multi-device paths on virtual CPU
-    meshes (BASELINE.md scaling row; real multi-chip hardware is not
-    reachable from this harness — the same code paths ride ICI/DCN
-    there).  Each case runs in a subprocess so the main process keeps
-    the TPU backend."""
-    cases = {}
-    for name, args in (("1host_8dev_mesh", ["sharded", "8"]),
-                       ("2proc_global_mesh", ["2proc", "2"])):
-        cmd = [sys.executable, os.path.abspath(__file__),
-               "--scaling-worker", *args, str(scaling_scale)]
-        try:
-            p = subprocess.run(cmd, capture_output=True, timeout=1800,
-                               cwd=HERE)
-            cases[name] = json.loads(p.stdout.strip().splitlines()[-1])
-        except Exception as e:  # noqa: BLE001 - report, don't die
-            cases[name] = {"error": str(e)[:200]}
-    return cases
-
-
-def scaling_worker(mode: str, n_dev: int, scale: int) -> None:
-    """Subprocess body for run_scaling_block (forced CPU backend)."""
-    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
-                               + f" --xla_force_host_platform_device_count={n_dev}")
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    from dsm_tpu.utils.jaxsetup import setup_jax
-
-    setup_jax()   # persistent compile cache across bench runs
-    datadir = os.path.join(f"/tmp/dsm_tpu_bench_s{scale}", "data")
-    if not os.path.exists(os.path.join(datadir, ".complete")):
-        from tests.make_toydata import make_toydata
-
-        os.makedirs(datadir, exist_ok=True)
-        make_toydata(datadir, scale=scale)
-        open(os.path.join(datadir, ".complete"), "w").close()
-    fastas = [os.path.join(datadir, f"toy{s}.fasta") for s in range(5)]
-    idxs, _, _ = build_indexes(fastas)
-    from dsm_tpu.mining.config import MiningConfig
-
-    cfg = MiningConfig(fmin=2, emax=1.2)
-    if mode == "sharded":
-        from dsm_tpu.parallel.engine_episode import mine_device_sharded
-
-        mine_device_sharded(idxs, cfg)     # compile warmup
-        t0 = time.perf_counter()
-        out = mine_device_sharded(idxs, cfg)
-        wall = time.perf_counter() - t0
-        print(json.dumps({"paths": out.total_paths,
-                          "paths_per_s": round(out.total_paths / wall, 1),
-                          "wall_s": round(wall, 2), "devices": n_dev}))
-    elif mode == "2proc":
-        import tempfile
-
-        worker = os.path.join(HERE, "tests", "multihost_mesh_worker.py")
-        with tempfile.TemporaryDirectory() as td:
-            t0 = time.perf_counter()
-            procs = [subprocess.Popen(
-                [sys.executable, worker, str(pid), "2", "localhost:57791",
-                 os.path.join(td, f"o{pid}")],
-                env={**os.environ, "PYTHONPATH": HERE}, cwd=HERE,
-                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
-                for pid in range(2)]
-            errs = [p.communicate(timeout=1700)[1] for p in procs]
-            wall = time.perf_counter() - t0
-            if any(p.returncode for p in procs):
-                raise RuntimeError(errs[0].decode()[-300:])
-            blobs = [open(os.path.join(td, f"o{pid}"), "rb").read()
-                     for pid in range(2)]
-        print(json.dumps({"identical_outputs": blobs[0] == blobs[1],
-                          "lines": blobs[0].count(b"\n"),
-                          "wall_s": round(wall, 2), "processes": 2}))
-
-
 class _Summed:
     """Path/line counters summed over per-prefix runs."""
 
@@ -284,10 +204,9 @@ def run_ours_gnu(idxs):
     return b"".join(blobs), paths, time.perf_counter() - t0
 
 
-def run_ours_sharded_1chip(idxs):
-    """The sharded episode engine on a 1-device mesh of the real chip —
-    bounds the shard_map machinery's overhead vs mine_device on the
-    hardware it actually targets (VERDICT r4 weak #4)."""
+def run_ours_sharded_1dev(idxs):
+    """The sharded episode engine on a 1-device mesh — bounds the
+    shard_map machinery's overhead vs mine_device."""
     import jax
     from jax.sharding import Mesh
 
@@ -324,7 +243,7 @@ def build_reference() -> bool:
             cwd=REF_BIN, check=True, capture_output=True, timeout=900,
         )
     except (subprocess.SubprocessError, OSError) as e:
-        log(f"bench: reference build failed ({e}); using frozen baseline")
+        log(f"bench: reference build failed ({e}); no live baseline")
         return False
     return ref_binaries_ready()
 
@@ -389,20 +308,19 @@ def run_reference(fastas: list[str]) -> dict | None:
 
 
 def main() -> None:
-    if len(sys.argv) > 1 and sys.argv[1] == "--scaling-worker":
-        scaling_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
-        return
-    from dsm_tpu.utils.jaxsetup import setup_jax
+    from dsm_tpu.utils.jaxsetup import gpu_name_power, require_gpu, setup_jax
 
     setup_jax()
-    fastas = make_dataset()
-    idxs, build_secs, build_kind = build_indexes(fastas)
+    gpu = require_gpu()
     import jax
 
-    platform = jax.devices()[0].platform
-    log(f"bench: scale={SCALE}, platform={platform}, "
-        f"n={sum(i.n for i in idxs)} symbols indexed "
-        f"({build_secs:.1f}s build, {build_kind})")
+    card = gpu_name_power()
+    log(f"bench: {card} | jax {jax.__version__}, {gpu.device_kind}, "
+        f"{len(jax.devices())} device(s)")
+    fastas = make_dataset()
+    idxs, build_secs, build_kind = build_indexes(fastas)
+    log(f"bench: scale={SCALE}, n={sum(i.n for i in idxs)} symbols "
+        f"indexed ({build_secs:.1f}s build, {build_kind})")
 
     out, wall = run_ours(idxs)
     ours_rate = out.total_paths / wall
@@ -413,103 +331,64 @@ def main() -> None:
     log(f"bench: gnu-order {gnu_paths} paths in {gnu_wall:.2f}s "
         f"-> {gnu_paths / gnu_wall:,.0f} paths/s")
 
-    sharded = {}
-    try:
-        sout, swall = run_ours_sharded_1chip(idxs)
-        sharded = {"paths": sout.total_paths,
-                   "paths_per_s": round(sout.total_paths / swall, 1),
-                   "wall_s": round(swall, 2),
-                   "paths_equal": sout.total_paths == out.total_paths}
-        log(f"bench: 1chip-sharded {sout.total_paths} paths in "
-            f"{swall:.2f}s -> {sout.total_paths / swall:,.0f} paths/s")
-    except Exception as e:  # noqa: BLE001 - report, don't die
-        sharded = {"error": str(e)[:200]}
-        log(f"bench: 1chip-sharded failed: {e}")
+    sout, swall = run_ours_sharded_1dev(idxs)
+    if sout.total_paths != out.total_paths:
+        raise SystemExit("bench: 1-device sharded episode path count "
+                         f"{sout.total_paths} != {out.total_paths}")
+    sharded = {"paths_per_s": round(sout.total_paths / swall, 1),
+               "wall_s": round(swall, 2)}
+    log(f"bench: 1dev-sharded {sout.total_paths} paths in "
+        f"{swall:.2f}s -> {sout.total_paths / swall:,.0f} paths/s")
 
     steps = bench_backward_search_steps(idxs)
-    log(f"bench: backward-search {steps/1e6:,.0f}M steps/s/chip")
+    log(f"bench: backward-search {steps/1e6:,.0f}M steps/s")
 
-    scaling = {}
-    if os.environ.get("DSM_BENCH_SKIP_SCALING") != "1":
-        scaling = run_scaling_block(
-            int(os.environ.get("DSM_BENCH_SCALING_SCALE", "1")))
-        log(f"bench: scaling {json.dumps(scaling)}")
-
-    # both baselines, always (VERDICT r3 weak #2: the live rerun swings
-    # with bench-host co-tenancy; the frozen number anchors comparisons)
-    with open(BASELINE_FILE) as f:
-        frozen_all = json.load(f)
-    frozen = frozen_all["reference"] if frozen_all["scale"] == SCALE else None
+    import hashlib
+    gnu_sha = hashlib.sha256(gnu_blob).hexdigest()
+    with open(GOLDEN_FILE) as f:
+        golden = json.load(f)
     live = None
     if os.environ.get("DSM_BENCH_SKIP_REF") != "1" and build_reference():
         live = run_reference(fastas)
-    if live is None and frozen is None:
-        raise SystemExit(f"no reference baseline available at scale {SCALE}")
-    ref, baseline_kind = ((live, "live-reference") if live is not None
-                          else (frozen, "frozen-reference"))
-    if not ref.get("total_paths"):
-        raise SystemExit("bench: reference run produced no path counters")
-    ref_rate = ref["total_paths"] / ref["mine_wall_s"]
-    log(f"bench: ref   {ref['total_paths']} paths in {ref['mine_wall_s']:.2f}s "
-        f"-> {ref_rate:,.0f} paths/s ({baseline_kind})")
-    if ref["total_paths"] != out.total_paths:
-        raise SystemExit(
-            f"bench: path-count mismatch ours={out.total_paths} "
-            f"ref={ref['total_paths']} — a perf number from a wrong "
-            "traversal is meaningless, refusing to report one")
-
-    # gnu-order LINE-level parity at bench scale (VERDICT r4 weak #3):
-    # byte-compare our 4-prefix gnu emission against the live servers'
-    # concatenated stdout, or the frozen digest when offline
-    import hashlib
-    gnu_sha = hashlib.sha256(gnu_blob).hexdigest()
-    if live is not None and live.get("lines") is not None:
+    if live is not None:
         gnu_parity = gnu_blob == live["lines"]
-    elif frozen is not None and frozen.get("lines_sha256"):
-        gnu_parity = gnu_sha == frozen["lines_sha256"]
+        want_paths = live["total_paths"]
+    elif golden["scale"] == SCALE:
+        gnu_parity = gnu_sha == golden["lines_sha256"]
+        want_paths = golden["total_paths"]
     else:
-        gnu_parity = None
-    if gnu_parity is False:
+        raise SystemExit(f"bench: no reference output at scale {SCALE}")
+    if out.total_paths != want_paths or not gnu_parity:
         raise SystemExit(
-            "bench: gnu-order line parity FAILED at scale "
-            f"{SCALE} (sha256 ours {gnu_sha})")
-    log(f"bench: gnu-order line parity {gnu_parity} "
-        f"({out.total_output} lines, sha256 {gnu_sha[:16]}…)")
+            f"bench: output differs from the reference at scale {SCALE} "
+            f"(paths {out.total_paths} vs {want_paths}, sha256 {gnu_sha})"
+            " — refusing to report a rate for a wrong traversal")
+    log(f"bench: gnu-order line parity ok ({out.total_output} lines)")
 
     detail = {
         "scale": SCALE,
-        "platform": platform,
+        "platform": gpu.platform,
+        "device_kind": gpu.device_kind,
+        "device_count": len(jax.devices()),
+        "nvidia_smi": card,
         "paths": out.total_paths,
         "reported": out.total_output,
         "mine_wall_s": round(wall, 3),
         "index_build_s": round(build_secs, 3),
         "index_build_timing": build_kind,
-        "baseline": baseline_kind,
-        "ref_paths_per_s": round(ref_rate, 1),
-        "steps_per_s_chip": round(steps, 1),
+        "steps_per_s": round(steps, 1),
         "gnu_paths_per_s": round(gnu_paths / gnu_wall, 1),
         "gnu_line_parity": gnu_parity,
-        "scaling": dict(scaling, **({"1chip_sharded": sharded}
-                                    if sharded else {})),
+        "sharded_1dev": sharded,
     }
-    if frozen is not None:
-        fr = frozen["total_paths"] / frozen["mine_wall_s"]
-        detail["frozen_ref_paths_per_s"] = round(fr, 1)
-        detail["vs_frozen"] = round(ours_rate / fr, 3)
-    sweep_file = os.path.join(HERE, "BENCH_SCALE_SWEEP.json")
-    if os.path.exists(sweep_file):
-        # builder-measured larger-scale comparisons (BENCHLOG_r05.md):
-        # the reference's cache-resident advantage fades with sample
-        # size while the TPU gather rate holds
-        with open(sweep_file) as f:
-            detail["scale_sweep"] = json.load(f)["rows"]
-    print(json.dumps({
-        "metric": "substrings_enumerated_per_s",
-        "value": round(ours_rate, 1),
-        "unit": "paths/s",
-        "vs_baseline": round(ours_rate / ref_rate, 3),
-        "detail": detail,
-    }))
+    result = {"metric": "substrings_enumerated_per_s",
+              "value": round(ours_rate, 1), "unit": "paths/s",
+              "detail": detail}
+    if live is not None:
+        ref_rate = live["total_paths"] / live["mine_wall_s"]
+        detail["ref_paths_per_s"] = round(ref_rate, 1)
+        result["vs_baseline"] = round(ours_rate / ref_rate, 3)
+    print(json.dumps(result))
 
 
 if __name__ == "__main__":

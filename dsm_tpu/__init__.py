@@ -1,8 +1,8 @@
-"""dsm_tpu — a TPU-native distributed string-mining framework.
+"""dsm_tpu — a distributed string-mining framework on JAX accelerators.
 
 Re-implements the capabilities of the HIITMetagenomics dsm-framework
 (Valimaki & Puglisi WABI'12; Seth et al. Bioinformatics 2014) with a design
-built for TPUs: flat small-alphabet occ tables instead of Huffman wavelet
+built for a vector accelerator: flat small-alphabet occ tables instead of Huffman wavelet
 trees, a batched LF/rank primitive instead of pointer-chasing, a
 breadth-first interval wavefront instead of a recursive DFS, and JAX
 collectives over a device mesh instead of hand-rolled TCP streams.

@@ -16,7 +16,7 @@ files and stream one trie per (sample, prefix) pair
   * `--mode config` — only write the hostinfo/discovery files so
     externally-managed processes can join.
 
-The integrated device pipeline (`dsm mine`) is the TPU-native path; this
+The integrated device pipeline (`dsm mine`) is the accelerator path; this
 launcher exists for reference-compatible process fleets (ours or mixed —
 every component speaks the reference wire protocol).
 """

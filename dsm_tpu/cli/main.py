@@ -7,7 +7,7 @@ executables, flag-for-flag (SURVEY.md §2.1, §5.6):
   dsm enumerate  <- metaenumerate(metaenumerate.cpp:130-323)
   dsm serve      <- metaserver   (metaserver.cpp:488-815)
   dsm distance   <- smtxt2entropy(wrapper-distance-matrix/smtxt2entropy.c)
-  dsm mine          the TPU-native integrated pipeline (no sockets):
+  dsm mine          the integrated accelerator pipeline (no sockets):
                     all samples co-resident on the device mesh, one
                     wavefront merge — what the serve/enumerate pair
                     computes, minus the TCP hop.
@@ -202,13 +202,15 @@ def cmd_mine(args) -> int:
         from ..parallel.engine_sharded import mine_sharded
 
         out = mine_sharded(indexes, cfg, prefix=prefix,
-                           reader_order=args.reader_order)
+                           reader_order=args.reader_order,
+                           verbose=args.verbose)
     elif args.engine == "sharded-episode":
         from ..parallel.engine_episode import mine_device_sharded
 
         out = mine_device_sharded(indexes, cfg, prefix=prefix,
                                   reader_order=args.reader_order,
-                                  checkpoint=args.checkpoint)
+                                  checkpoint=args.checkpoint,
+                                  verbose=args.verbose)
     else:
         from ..mining.engine import mine_tpu
 
@@ -314,7 +316,7 @@ def cmd_distance(args) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        prog="dsm", description="TPU-native distributed string mining")
+        prog="dsm", description="distributed string mining on an accelerator")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     b = sub.add_parser("build", help="FASTA -> FM-index artifact")
@@ -369,7 +371,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.set_defaults(fn=cmd_serve)
 
     m = sub.add_parser(
-        "mine", help="integrated TPU pipeline: indexes -> mined substrings")
+        "mine", help="integrated device pipeline: indexes -> mined substrings")
     m.add_argument("indexes", nargs="+")
     m.add_argument("-f", "--fmin", type=_int_min(1, "-f, --fmin"), default=10)
     m.add_argument("-M", "--maxdepth",
@@ -389,7 +391,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["tpu", "auto", "numpy", "sharded",
                             "sharded-episode"],
                    default="tpu",
-                   help="auto: capacity-planned routing (single chip / "
+                   help="tpu (the name of the single-device engine): "
+                        "device-resident episode loop; "
+                        "auto: capacity-planned routing (single device / "
                         "sample-sharded mesh / bounded-memory host, "
                         "mining/bigindex.py); sharded: per-level mesh "
                         "engine; sharded-episode: device-resident episode "

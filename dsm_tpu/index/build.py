@@ -40,8 +40,8 @@ def build_index(
 ) -> str:
     t0 = time.time()
     if sa_backend == "auto":
-        # the on-chip prefix-doubling sort is the benched production
-        # path (bench.py build_indexes); fall back to numpy off-chip
+        # the device prefix-doubling sort (ops/sa.py) whenever JAX has
+        # an accelerator; the numpy sort on a CPU-only host
         try:
             import jax
 

@@ -1,4 +1,4 @@
-"""FM-index over a multi-text DNA collection — TPU-native layout.
+"""FM-index over a multi-text DNA collection — flat device layout.
 
 Replaces the reference's FMIndex (FMIndex.h/.cpp: C[256] table + Huffman
 wavelet tree + RLCSA construction) with a flat 8-symbol design:

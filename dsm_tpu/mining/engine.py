@@ -1,4 +1,4 @@
-"""TPU wavefront mining engine — the flagship compute path.
+"""Wavefront mining engine: device tables and the per-level step.
 
 Replaces the reference's d client processes x recursive DFS x TCP trie
 streams x lazy server merge (EnumerateQuery.cpp:151-238,
@@ -27,8 +27,8 @@ The expansion/analysis/compaction cores below are shared with the
 device-resident episode engine (mining/engine_device.py — the default
 path, no per-level host round-trips) and the multi-device engine
 (parallel/engine_sharded.py), which shards the sample axis over a mesh
-and turns the child-statistic reductions into psums — the TPU-native
-equivalent of the reference's TCP trie-stream merge.
+and turns the child-statistic reductions into psums — the device form
+of the reference's TCP trie-stream merge.
 
 Frequencies f >= fmin pruning happens per sample exactly as the client
 does (EnumerateQuery.cpp:186-190); activity propagates down paths because
@@ -64,30 +64,27 @@ MAX_SAMPLES = 512
 # tables must keep soff * MAX_SAMPLES + MAX_SAMPLES - 1 < 2^31.
 MAX_TABLE_ROWS = 2**31 // MAX_SAMPLES
 
-DEFAULT_HBM_BYTES = 14 << 30   # v5e: 16 GiB minus runtime reserves
-
-
 def hbm_budget() -> int:
-    """Per-device HBM budget in bytes (env DSM_HBM_BYTES overrides; the
-    device's own report is used when the backend exposes one).  CPU
-    hosts get an effectively-unbounded budget (host RAM is the limit
-    and pages)."""
+    """Per-device memory budget in bytes: DSM_HBM_BYTES when set, else
+    90% of the `bytes_limit` the device reports in memory_stats().  CPU
+    hosts get an effectively unbounded budget (host RAM is the limit and
+    pages).  An accelerator that reports no limit raises: guessing a
+    size would plan capacities for some other device."""
     env = os.environ.get("DSM_HBM_BYTES")
     if env:
         return int(env)
-    try:
-        import jax
+    import jax
 
-        dev = jax.devices()[0]
-        if dev.platform == "cpu":
-            return 1 << 62
-        stats = dev.memory_stats() or {}
-        lim = stats.get("bytes_limit")
-        if lim:
-            return int(lim * 0.9)
-    except Exception:
-        pass
-    return DEFAULT_HBM_BYTES
+    dev = jax.devices()[0]
+    if dev.platform == "cpu":
+        return 1 << 62
+    lim = (dev.memory_stats() or {}).get("bytes_limit")
+    if not lim:
+        raise RuntimeError(
+            f"device {dev.device_kind!r} ({dev.platform}) reports no "
+            "memory limit in memory_stats(); set DSM_HBM_BYTES to its "
+            "usable memory in bytes")
+    return int(lim * 0.9)
 
 
 @dataclass

@@ -39,7 +39,7 @@ fast paths (metaserver.cpp:211-267) produce no stdout when pmin > 1 and
 are subsumed by the normal gates when pmin == 1 (traverseOneWithOutput is
 dead code — never called).
 
-This implementation is the differential-test oracle for the TPU wavefront
+This implementation is the differential-test oracle for the device wavefront
 engine (mining/engine.py); it is itself validated against the compiled
 reference binaries (tests/test_parity.py).
 """
@@ -202,7 +202,7 @@ def emit_level(
 ) -> None:
     """Shared emission stage (metaserver.cpp:356-485): entropy, stats,
     output gates, line assembly.  Used by both the NumPy oracle and the
-    TPU wavefront engine (whose device step hands back freq/lc/
+    per-level device engine (whose device step hands back freq/lc/
     single_full)."""
     active = freq > 0
     nactive = active.sum(axis=1)

@@ -1,10 +1,11 @@
 """On-demand build + ctypes bindings for the native trie-stream codec.
 
-Compiles net/_trieio.cpp with the system g++ into the user cache dir the
-first time it's needed (sub-second; cached by source hash), and exposes
+Compiles net/_trieio.cpp with the system g++ into the checkout's `.cache/`
+the first time it's needed (sub-second; cached by source hash), and exposes
 NativeTrieParser / native_encode with the exact interface semantics of
 the pure-Python codec in net/wire.py.  Falls back to None when no
-toolchain is available — callers use wire.TrieParser then.
+toolchain or no writable checkout cache is available — callers use
+wire.TrieParser then.
 """
 
 from __future__ import annotations
@@ -37,15 +38,20 @@ def _build() -> str | None:
     with open(_SRC, "rb") as f:
         src = f.read()
     tag = hashlib.sha256(src).hexdigest()[:16]
-    cache = os.environ.get(
-        "DSM_TPU_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "dsm_tpu"))
-    os.makedirs(cache, exist_ok=True)
+    from ..utils.jaxsetup import CHECKOUT_CACHE
+
+    if CHECKOUT_CACHE is None:
+        return None
+    cache = os.path.join(CHECKOUT_CACHE, "native")
     sopath = os.path.join(cache, f"_trieio-{tag}.so")
     if os.path.exists(sopath):
         return sopath
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=cache)
-    os.close(fd)
+    try:
+        os.makedirs(cache, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=cache)
+        os.close(fd)
+    except OSError:
+        return None
     try:
         subprocess.run(
             ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],

@@ -1,21 +1,18 @@
-"""Stream compaction on TPU: gather-index computation for keep-masks.
+"""Stream compaction: gather-index computation for keep-masks.
 
 The mining wavefront compacts surviving children / gated outputs into
 dense arrays every level.  PRODUCTION PATH: `compact_kidx_sort` — one
 `lax.sort` whose keys are the element indices where kept and n (sorts
 last) where dropped, so the sorted prefix IS the compaction index list.
-Measured on v5e at 8M elements: ~7 ms for the sort vs ~230 ms for the
-rank/select alternative below (TPU sort networks are ~2 ns/lane while
-1-D table gathers run at ~7-9 ns/element, so the O(n log^2 n) sort wins
-in practice).
+Its cost on the GPU against a sort-free compaction (prefix sums + one
+scatter) is not yet measured.
 
 RETAINED ALTERNATIVE: `compact_kidx` computes the same indices the way
 an FM-index answers select queries — pack the keep mask into uint32
 words, popcount + prefix-sum the per-word counts, invert the (sorted)
 word-offset map with a scatter-max plus a cummax, then two 1-D gathers
 from word-count-sized tables and a 5-step branchless in-word bit
-select.  It avoids sorting entirely and can win if a future toolchain
-speeds up small-table gathers; both paths are differentially tested
+select.  It avoids sorting entirely; both paths are differentially tested
 against the NumPy oracle (tests/test_compact.py).
 
 Used by the device mining episode (mining/engine_device.py); the
@@ -86,10 +83,9 @@ def compact_kidx(mask, width: int):
 
 
 def compact_kidx_sort(mask, width: int):
-    """compact_kidx via one `lax.sort` — the production path (see the
-    module docstring for the measured numbers).  Keys are the element
-    indices where kept and n (sorts last) where not, so the sorted
-    prefix IS the compaction index list."""
+    """compact_kidx via one `lax.sort` — the production path.  Keys
+    are the element indices where kept and n (sorts last) where not, so
+    the sorted prefix IS the compaction index list."""
     import jax.numpy as jnp
     from jax import lax
 

@@ -2,8 +2,9 @@
 
 The reference answers `occ(c, i)` with a Huffman-shaped wavelet tree over
 two-level rank bitvectors (HuffWT.h:66-83, BitRank.cpp:191-195) — a
-pointer-chase of 2-3 dependent bitvector ranks per query.  On TPU we replace
-that with flat layouts sized for the VPU.
+pointer-chase of 2-3 dependent bitvector ranks per query.  Here that
+becomes one gather of a flat, fixed-width row per query, which vectorizes
+over whole batches of queries.
 
 Host/storage layout (`OccTable`):
   * `blocks`  (nblocks, BLOCK) int8   — BWT codes, PAD-padded tail
@@ -25,14 +26,8 @@ so ONE gather + 5 (AND + popcount over 4 words) yields the cumulative
 <=-counts cum(1..5, i), from which both the per-symbol occ of every
 extension base (A=cum2-cum1, C=cum3-cum2, G=cum4-cum3, T=i-cum5) and the
 lexicographic prefix sums needed for bidirectional (2BWT) interval
-synchronization fall out.  Measured ~8x faster than 128-lane
-compare-and-sum per query on v5e (the symbol codes are in ASCII order —
+synchronization fall out (the symbol codes are in ASCII order —
 index/alphabet.py — which is what makes <=-counts sufficient).
-
-A Pallas kernel was evaluated and measured SLOWER than XLA's gather on
-this toolchain (jax 0.9.0 Mosaic): `tpu.dynamic_gather` only shuffles
-within one vreg, so big-table vector gathers are inexpressible.  XLA's
-native gather reaches ~450M rows/s from cache-resident tables.
 """
 
 from __future__ import annotations
@@ -43,7 +38,7 @@ import numpy as np
 
 from ..index.alphabet import PAD, SIGMA
 
-BLOCK = 128  # one VPU lane-row per in-block count
+BLOCK = 128  # symbols per fused row
 LOG2_BLOCK = 7
 
 
@@ -142,17 +137,25 @@ def fused_rows(table: OccTable, c4=None) -> np.ndarray:
     return rows
 
 
-def _sel15() -> np.ndarray:
-    """(96, 15) selection matrix for occ_cum: output cols 0-4 sum the
-    low-16 halves of cum_1..5, 5-9 the high halves, 10-14 the masked
-    plane popcounts."""
-    lo = np.zeros((32, 5), np.float32)
-    pcs = np.zeros((32, 5), np.float32)
-    for j in range(1, 6):
-        lo[j, j - 1] = 1.0
-        pcs[8 + 4 * (j - 1): 8 + 4 * j, j - 1] = 1.0
-    z = np.zeros_like(lo)
-    return np.block([[lo, z, z], [z, lo, z], [z, z, pcs]])
+def _plane_counts(planes, rem):
+    """Masked popcounts of the 20 plane words at in-block offsets `rem`.
+
+    planes: (20, Q) uint32 (plane-major, 4 words per plane); rem: (Q,)
+    int32 in [0, BLOCK).  Returns (5, Q) uint32 counts of codes <= j,
+    j = 1..5, among the first `rem` symbols of each block."""
+    import jax.numpy as jnp
+    from jax import lax
+
+    w = rem >> 5
+    bit = (rem & 31).astype(jnp.uint32)
+    colw20 = jnp.tile(jnp.arange(4, dtype=jnp.int32), _NPLANES)
+    full = jnp.where(colw20[:, None] < w[None, :],
+                     jnp.uint32(0xFFFFFFFF), jnp.uint32(0))
+    part = jnp.where(colw20[:, None] == w[None, :],
+                     (jnp.uint32(1) << bit[None, :]) - jnp.uint32(1),
+                     jnp.uint32(0))
+    pc = lax.population_count(planes & (full | part))    # (20, Q)
+    return pc.reshape(_NPLANES, 4, -1).sum(axis=1, dtype=jnp.uint32)
 
 
 def occ_cum(rows, blk, rem):
@@ -163,79 +166,39 @@ def occ_cum(rows, blk, rem):
     index; rem (...,) int32 in [0, BLOCK).  Returns (..., 5) int32 =
     cum(j, pos) for j = 1..5 where pos = blk*BLOCK + rem.
 
-    The gathered (Q, 32) row is consumed WITHOUT minor-dim slices: one
-    masked popcount over all 32 columns + one f32 MXU dot whose 16-bit
-    split keeps every partial sum exact at HIGHEST precision (baked-C4
-    cums wrap uint32; low/high halves are < 2^16 one-hot sums).  The
-    sliced/bitcast form measured 37.5 ms per 3M queries on v5e against
-    19.3 ms for this one (tools/micro_occ3.py) — the minor-dim slice
-    of a gathered row relayouts across lanes and costs more than the
-    gather itself.
-    """
+    Integer arithmetic throughout, as in occ_cumT: the base columns are
+    bitcast (baked-C4 cums wrap uint32, and the wrap cancels in every
+    difference the callers take) and the plane words are summed as
+    masked popcounts."""
     import jax.numpy as jnp
     from jax import lax
 
     shape = blk.shape
-    blkf = blk.reshape(-1)
-    remf = rem.reshape(-1)
-    g = jnp.take(rows, blkf, axis=0)                     # (Q, ROWW)
-    w = remf >> 5
-    bit = (remf & 31).astype(jnp.uint32)
-    colw = jnp.asarray(_COLW)
-    full = jnp.where((colw[None, :] < w[:, None]) & (colw[None, :] >= 0),
-                     jnp.uint32(0xFFFFFFFF), jnp.uint32(0))
-    part = jnp.where(colw[None, :] == w[:, None],
-                     (jnp.uint32(1) << bit[:, None]) - jnp.uint32(1),
-                     jnp.uint32(0))
-    pc = lax.population_count(g & (full | part))         # (Q, 32)
-    cat = jnp.concatenate(
-        [(g & jnp.uint32(0xFFFF)).astype(jnp.float32),
-         (g >> 16).astype(jnp.float32),
-         pc.astype(jnp.float32)], axis=1)                # (Q, 96)
-    o = jnp.dot(cat, jnp.asarray(_sel15()),
-                precision=lax.Precision.HIGHEST,
-                preferred_element_type=jnp.float32)      # (Q, 15)
-    v = (o[:, 0:5].astype(jnp.int32)
-         + (o[:, 5:10].astype(jnp.int32) << 16)
-         + o[:, 10:15].astype(jnp.int32))
-    return v.reshape(shape + (5,))
+    g = jnp.take(rows, blk.reshape(-1), axis=0).T        # (ROWW, Q)
+    cnt5 = _plane_counts(g[8:28], rem.reshape(-1))
+    base5 = lax.bitcast_convert_type(g[1:6], jnp.int32)
+    v = base5 + lax.bitcast_convert_type(cnt5, jnp.int32)
+    return v.T.reshape(shape + (5,))
 
 
 def occ_cumT(rowsT, blk, rem):
     """Batched cumulative <=-counts from a TRANSPOSED fused table.
 
     rowsT: (ROWW, R) uint32 — `fused_rows(...).T`, the mining episode's
-    hot layout; blk/rem: (Q,) int32.  Returns (5, Q) int32 cum(1..5).
+    layout; blk/rem: (Q,) int32.  Returns (5, Q) int32 cum(1..5).
 
     The column gather `take(rowsT, blk, axis=1)` lands the row's words
-    on the MAJOR axis, so base extraction (rows 1:6), the plane masks
-    and the per-plane popcount sums are all major-dim ops that fuse
-    into the gather for free: measured 14.6 ms per 3M queries on v5e —
-    the raw gather's own cost — vs 37.5 ms for the row-major form with
-    its minor-dim slices and 19.3 ms for an MXU-dot assembly
-    (tools/micro_occ3.py, round-5 trace)."""
+    on the major axis, so base extraction (rows 1:6), the plane masks
+    and the per-plane popcount sums are all major-axis operations on
+    the gathered block.  Not yet compared on the GPU with the row-major
+    form (occ_cum)."""
     import jax.numpy as jnp
     from jax import lax
 
     g = jnp.take(rowsT, blk, axis=1)                     # (32, Q)
-    w = rem >> 5
-    bit = (rem & 31).astype(jnp.uint32)
-    colw20 = jnp.tile(jnp.arange(4, dtype=jnp.int32), _NPLANES)
-    full = jnp.where(colw20[:, None] < w[None, :],
-                     jnp.uint32(0xFFFFFFFF), jnp.uint32(0))
-    part = jnp.where(colw20[:, None] == w[None, :],
-                     (jnp.uint32(1) << bit[None, :]) - jnp.uint32(1),
-                     jnp.uint32(0))
-    pc = lax.population_count(g[8:28] & (full | part))   # (20, Q)
-    cnt5 = pc.reshape(_NPLANES, 4, -1).sum(
-        axis=1, dtype=jnp.uint32)                        # (5, Q)
+    cnt5 = _plane_counts(g[8:28], rem)                   # (5, Q)
     base5 = lax.bitcast_convert_type(g[1:6], jnp.int32)
     return base5 + lax.bitcast_convert_type(cnt5, jnp.int32)
-
-
-_COLW = np.full(32, -1, np.int32)
-for _c in range(8, 28):
-    _COLW[_c] = (_c - 8) % 4
 
 
 def occ_cum8T(rowsT, blk, rem, pos):
@@ -243,9 +206,8 @@ def occ_cum8T(rowsT, blk, rem, pos):
     [C4A+occA, C4C+occC, C4G+occG, pos-c5(+C4T), c1, c2, c3, c5]
     for baked-C4 tables (fused_rows c4=) — rows 0:4 ARE the per-symbol
     child bounds, rows 4:8 the lexicographic prefix sums.  Built on
-    occ_cumT (transposed-table column gather; see its header for the
-    measured rationale); the occ/psum assembly is major-axis
-    concatenation, free of relayouts."""
+    occ_cumT (transposed-table column gather); the occ/psum assembly is
+    a major-axis concatenation."""
     import jax.numpy as jnp
 
     c = occ_cumT(rowsT, blk, rem)                      # (5, Q)

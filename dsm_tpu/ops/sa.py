@@ -3,9 +3,9 @@
 The reference builds its BWT through RLCSA, whose core sorter is a
 Larsson-Sadakane prefix-doubling suffix sort (reference:
 incbwt/misc/utils.cpp:297-384).  Prefix doubling is also the natural
-TPU-side algorithm: each round is one global sort (`jax.lax.sort`) plus
+device algorithm: each round is one global sort (`jax.lax.sort`) plus
 elementwise rank reassignment — no data-dependent control flow, O(log n)
-rounds of O(n log n) sorting that XLA maps onto the sort unit.
+rounds of O(n log n) sorting.
 
 Two implementations with identical results:
   * `suffix_array_np`  — NumPy (host, used for tests and small builds)
@@ -66,9 +66,8 @@ def suffix_array_jax(codes) -> "jax.Array":  # noqa: F821
     early-exit predicate on all-ranks-unique.
 
     The input is right-padded with DISTINCT negative codes to the next
-    power of two so EVERY text length shares one compiled program (a
-    fresh XLA compile costs minutes on a remote-compile TPU toolchain;
-    the padded program compiles once and persists in the cache).
+    power of two so every text length up to that power shares one
+    compiled program (which then persists in the compilation cache).
     Padding codes [-pad, ..., -1] (increasing toward the end):
       * any window comparison between two REAL suffixes that runs past
         the text is decided at the first padding touch, where exactly

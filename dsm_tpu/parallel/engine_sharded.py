@@ -1,6 +1,6 @@
 """Multi-device wavefront mining: samples and trie prefixes on a mesh.
 
-This is the TPU-native replacement for the reference's distributed
+This is the device replacement for the reference's distributed
 topology (SURVEY.md §5.8): d clients streaming serialized tries over TCP
 into per-prefix merge servers becomes a single SPMD program on a
 ('prefix', 'samples') mesh:
@@ -10,7 +10,7 @@ into per-prefix merge servers becomes a single SPMD program on a
     data parallelism, metaenumerate.cpp:268-309);
   * the per-level child-existence/child-count reductions — the information
     content of the reference's trie-stream merge (metaserver.cpp:159-189,
-    325-339) — are psums over the samples axis riding ICI;
+    325-339) — are psums over the samples axis;
   * frontier rows are replicated within a prefix row and disjoint across
     prefix rows (depth-0 symbol partitioning — the reference's
     enforcepath server sharding, wrapper-SLURM/example-server.sh).
@@ -23,6 +23,7 @@ oracle to the reference binaries.
 from __future__ import annotations
 
 import functools
+import sys
 
 import numpy as np
 
@@ -53,10 +54,14 @@ class ShardedIndexes:
     right-padded with inert zero rows that no in-range position gathers).
 
     Like mining.engine.DeviceIndexes, both device layouts are LAZY so a
-    run pays HBM only for what its engine touches: frows/rrows
+    run pays device memory only for what its engine touches: frows/rrows
     (S, NBP, ROWW) row-major for the per-level legacy engine here, and
     frowsT/rrowsT (S, ROWW, NBP) for the sharded episode engine, whose
-    shard body flattens them to the ops/rank.occ_cumT column layout."""
+    shard body flattens them to the ops/rank.occ_cumT column layout.
+
+    `sharding` (a NamedSharding over the sample axis) places each layout
+    shard by shard as it is first built, so every device receives only
+    its own samples' rows."""
 
     S: int
     ns: np.ndarray   # (S,) int64
@@ -64,14 +69,26 @@ class ShardedIndexes:
     rnp: np.ndarray
     C4: object       # jnp (S, 4) int32
     C4hi: object
+    sharding: object
 
     def _layout(self, key: str, make):
-        import jax.numpy as jnp
+        import jax
 
         cache = self.__dict__.setdefault("_cache", {})
         if key not in cache:
-            cache[key] = jnp.asarray(make())
+            host = make()
+            cache[key] = jax.make_array_from_callback(
+                host.shape, self.sharding, lambda idx: host[idx])
         return cache[key]
+
+    def placement(self, key: str) -> str:
+        """"device:samples[a:b], ..." for the addressable shards of an
+        already built layout ("f", "r", "fT" or "rT")."""
+        shards = sorted(
+            (sh.index[0].start or 0, sh.index[0].stop or self.S,
+             str(sh.device))
+            for sh in self.__dict__["_cache"][key].addressable_shards)
+        return ", ".join(f"{d}:samples[{a}:{b}]" for a, b, d in shards)
 
     @property
     def frows(self):
@@ -94,8 +111,8 @@ class ShardedIndexes:
                 self.rnp.transpose(0, 2, 1)))
 
     @classmethod
-    def build(cls, indexes: list[FMIndex], pad_to: int | None = None
-              ) -> "ShardedIndexes":
+    def build(cls, indexes: list[FMIndex], sharding,
+              pad_to: int | None = None) -> "ShardedIndexes":
         import jax.numpy as jnp
 
         S_real = len(indexes)
@@ -119,7 +136,7 @@ class ShardedIndexes:
             C4hi[s] = [idx.C[c + 1] for c in EXT4]
             ns[s] = idx.n
         return cls(S=S, ns=ns, fnp=frows, rnp=rrows, C4=jnp.asarray(C4),
-                   C4hi=jnp.asarray(C4hi))
+                   C4hi=jnp.asarray(C4hi), sharding=sharding)
 
 
 def _sharded_step_impl(frows, rrows, lo, hi, rlo, valid, fmin,
@@ -161,22 +178,12 @@ def _jitted_sharded_step(mesh):
     import jax
     from jax.sharding import PartitionSpec as P
 
-    def shard_map(f, mesh, in_specs, out_specs):
-        try:
-            return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
-                                 out_specs=out_specs, check_vma=False)
-        except AttributeError:  # older jax
-            from jax.experimental.shard_map import shard_map as sm
-
-            return sm(f, mesh=mesh, in_specs=in_specs,
-                      out_specs=out_specs, check_rep=False)
-
     spec_tbl = P(SAMPLES_AXIS)                       # frows/rrows
     spec_iv = P(PREFIX_AXIS, None, SAMPLES_AXIS)     # lo/hi/rlo
     spec_row = P(PREFIX_AXIS)                        # valid/sym_mask
-    fn = shard_map(
+    fn = jax.shard_map(
         _sharded_step_impl,
-        mesh=mesh,
+        mesh=mesh, check_vma=False,
         in_specs=(spec_tbl, spec_tbl,
                   spec_iv, spec_iv, spec_iv, spec_row,
                   P(), spec_row),
@@ -229,6 +236,7 @@ def mine_sharded(
     cap: int = MIN_CAP,
     prefix: bytes = b"",
     reader_order: str = "ascending",
+    verbose: bool = False,
 ) -> MinedOutput:
     """Mine on a device mesh: samples sharded + psum-merged, trie split
     into disjoint depth-0 prefix partitions per mesh row.  Output is
@@ -236,10 +244,13 @@ def mine_sharded(
     enforcepath `prefix` restriction (EnumerateQuery.cpp:240-290) and
     reader_order='gnu' byte-exact emission (one GnuOrderTracker per
     prefix row — rows see disjoint path sets, so per-row trackers equal
-    the single-server replay of mining/gnuorder.py).
+    the single-server replay of mining/gnuorder.py).  `verbose` reports
+    on stderr which device holds which samples' tables.
     """
     import jax
     import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
 
     cfg.validate()
     if mesh is None:
@@ -249,7 +260,9 @@ def mine_sharded(
     n_sshard = mesh.shape[SAMPLES_AXIS]
     d = len(indexes)
     pad_to = -(-d // n_sshard) * n_sshard
-    dev = ShardedIndexes.build(indexes, pad_to=pad_to)
+    dev = ShardedIndexes.build(
+        indexes, pad_to=pad_to,
+        sharding=NamedSharding(mesh, P(SAMPLES_AXIS)))
 
     out = MinedOutput(freq_histogram=np.zeros(d, dtype=np.int64))
     deep = row_prefix_masks(n_prefix)          # (n_prefix, k_rows, 4)
@@ -274,6 +287,10 @@ def mine_sharded(
     onehots = [jnp.asarray(np.repeat(np.eye(4, dtype=bool)[ci][None],
                                      n_prefix, 0)) for ci in range(4)]
 
+    frows, rrows = dev.frows, dev.rrows
+    if verbose:
+        print(f"mine_sharded: table shards {dev.placement('f')}",
+              file=sys.stderr, flush=True)
     state = _seed_sharded(dev, n_prefix, cap)
     paths: list[list[bytes]] = [[b""] for _ in range(n_prefix)]
     depth = 0
@@ -290,7 +307,7 @@ def mine_sharded(
             if depth < len(prefix_codes):
                 sym_mask = sym_mask & onehots[prefix_codes[depth]]
 
-        res = step(dev.frows, dev.rrows, *state, fmin, sym_mask)
+        res = step(frows, rrows, *state, fmin, sym_mask)
         counts = np.asarray(res["child_count"])
         cap_now = state[0].shape[1]
         if counts.max() > cap_now:

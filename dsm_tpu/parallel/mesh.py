@@ -9,9 +9,9 @@ The reference scales along two axes (SURVEY.md §2.5):
 
 Here both become mesh axes: ('prefix', 'samples').  The samples axis
 shards the per-sample occ tables and frequency columns — the TCP merge
-becomes psums over ICI.  The prefix axis shards disjoint depth-0 symbol
-partitions of the union trie — embarrassingly parallel, no collectives,
-exactly like the reference's per-prefix server processes.
+becomes psums over that axis.  The prefix axis shards disjoint depth-0
+symbol partitions of the union trie — embarrassingly parallel, no
+collectives, exactly like the reference's per-prefix server processes.
 """
 
 from __future__ import annotations

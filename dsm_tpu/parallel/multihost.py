@@ -14,7 +14,8 @@ Two composition modes, matching how the reference scales:
   * GLOBAL SAMPLES MESH (`global_samples_mesh` + engine_episode) — after
     `initialize()` (jax.distributed), a ('samples',) mesh over EVERY
     host's devices runs the device-resident episode loop with its
-    per-level psums riding ICI within a host and DCN across hosts.  The
+    per-level psums crossing the host's own interconnect within a host
+    and the network across hosts.  The
     episode driver's host pulls are all-gathers, so every process sees
     identical drained outputs and emits the same lines.
 

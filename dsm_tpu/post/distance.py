@@ -1,6 +1,6 @@
 """Pairwise sample-distance matrices from mined substring rows.
 
-TPU-native equivalent of the reference post-processing stage
+Equivalent of the reference post-processing stage
 ``wrapper-distance-matrix/smtxt2entropy.c`` (see SURVEY.md §2.4): streams
 ``metaserver`` output rows (``path entropy id:freq id:freq ...``), bins
 each row by its normalized cross-sample entropy, and accumulates four
@@ -31,7 +31,8 @@ Two accumulation modes:
     math, float association differs by O(ulp).  Use for bulk runs.
 
 The jax path ``pairwise_matrices_jax`` evaluates a full row-chunk on the
-accelerator (one-hot bin matmul onto the MXU) for bulk post-processing.
+accelerator (the per-bin reductions are one-hot matrix products) for
+bulk post-processing.
 """
 
 from __future__ import annotations
@@ -323,11 +324,18 @@ def pairwise_matrices(F: np.ndarray, nbins: int, bins: np.ndarray,
 def pairwise_matrices_jax(F, nbins: int, bins):
     """Device version of pairwise_matrices for bulk post-processing.
 
-    The bin×pair reductions become MXU matmuls (einsum over the row
-    axis).  f32 accumulation — for byte-parity output use the host
-    exact path; this is the throughput path for huge row counts.
+    The bin×pair reductions become matrix products (einsum over the row
+    axis), asked for at HIGHEST precision: a GPU would otherwise run f32
+    products in TF32, whose 10-bit mantissa would lose the counts and
+    sums.  f32 accumulation — for byte-parity output use the host exact
+    path; this is the throughput path for huge row counts.
     """
+    import functools
+
     import jax.numpy as jnp
+    from jax import lax
+
+    einsum = functools.partial(jnp.einsum, precision=lax.Precision.HIGHEST)
 
     F = jnp.asarray(F)
     R, d = F.shape
@@ -338,13 +346,13 @@ def pairwise_matrices_jax(F, nbins: int, bins):
     upper_gt = jnp.triu(jnp.ones((d, d), dtype=bool), k=1)
 
     Pf = P.astype(jnp.float32)
-    count = jnp.einsum("rb,rj,rk->bjk", onehot, Pf, Pf) * upper_ge
+    count = einsum("rb,rj,rk->bjk", onehot, Pf, Pf) * upper_ge
 
     lg, sq = jnp.log1p(f), jnp.sqrt(f)
 
     def sqdiff(a):
-        s2 = jnp.einsum("rb,rj->bj", onehot, a * a)
-        cross = jnp.einsum("rb,rj,rk->bjk", onehot, a, a)
+        s2 = einsum("rb,rj->bj", onehot, a * a)
+        cross = einsum("rb,rj,rk->bjk", onehot, a, a)
         return (s2[:, :, None] + s2[:, None, :] - 2 * cross) * upper_gt
 
     from jax.scipy.special import gammaln
@@ -357,7 +365,7 @@ def pairwise_matrices_jax(F, nbins: int, bins):
         - gammaln(f + 1.0)[:, None, :] - (s + 1.0),
         0.0,
     )
-    lgam = jnp.einsum("rb,rjk->bjk", onehot, lgam_terms)
+    lgam = einsum("rb,rjk->bjk", onehot, lgam_terms)
     return {"count": count.astype(jnp.int32), "log": sqdiff(lg),
             "sqrt": sqdiff(sq), "lgamma": lgam}
 

@@ -22,7 +22,9 @@ import sys
 import time
 
 def _default_ref_bin() -> str:
-    for cand in ("/tmp/refsrc", "/tmp/refsrc-bench"):
+    checkout = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ".cache", "refsrc")
+    for cand in ("/tmp/refsrc", checkout):
         if os.path.exists(os.path.join(cand, "builder")):
             return cand
     return "/tmp/refsrc"

@@ -3,8 +3,8 @@
 Differential: feed the same mined rows (golden metaserver output) to the
 compiled reference binary (wrapper-distance-matrix/smtxt2entropy.c) and
 to dsm_tpu.post.distance, diff the four output files byte-wise.  The
-binary is compiled on demand into /tmp/refsrc; tests skip if no
-toolchain.  Batched (exact=False) and jax paths are checked against the
+binary is compiled on demand into $DSM_REF_BIN (conftest.py; else the
+checkout's .cache/refsrc); tests skip if no toolchain.  Batched (exact=False) and jax paths are checked against the
 exact path numerically.
 """
 
@@ -27,7 +27,8 @@ from dsm_tpu.post.distance import (
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "golden")
-REF_BIN = os.environ.get("DSM_REF_BIN", "/tmp/refsrc")
+REF_BIN = os.environ.get("DSM_REF_BIN") or os.path.join(
+    os.path.dirname(HERE), ".cache", "refsrc")
 SMTXT = os.path.join(REF_BIN, "smtxt2entropy")
 SRC = "/root/reference/wrapper-distance-matrix/smtxt2entropy.c"
 
@@ -156,6 +157,10 @@ def test_jax_path_matches():
     ref = pairwise_matrices(F, 2, bins)
     got = pairwise_matrices_jax(F, 2, bins)
     assert np.array_equal(np.asarray(got["count"]), ref["count"])
+    # the jax path accumulates in float32 (products at HIGHEST precision,
+    # so no TF32 rounding on a GPU): relative rounding of ~1e-7 per term
+    # over the golden set's rows, plus the cancellation in
+    # s2_j + s2_k - 2*cross of sqdiff, stays well under 2e-4
     for kind in ("log", "sqrt", "lgamma"):
         np.testing.assert_allclose(np.asarray(got[kind]), ref[kind],
                                    rtol=2e-4, atol=2e-4)

@@ -1,9 +1,9 @@
-"""Differential tests: TPU wavefront engine vs the NumPy oracle.
+"""Differential tests: the device wavefront engine vs the NumPy oracle.
 
 The oracle (engine_np) is itself byte-parity-tested against the compiled
 reference binaries (test_parity.py), so exact agreement here chains to
 reference parity.  Runs on the CPU backend (tests/conftest.py); the same
-jitted step is what bench.py runs on a real chip.
+jitted step is what chip_smoke.py runs on the GPU.
 
 The toydata configs are depth-capped to keep CPU cost down (the machine
 running unit tests has 2 cores); full-depth deep-chain behaviour (unary

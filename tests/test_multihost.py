@@ -92,7 +92,7 @@ def test_two_process_global_samples_mesh(tmp_path, oracle_lines):
     """VERDICT r3 missing #1: actually run mine_device_sharded over a
     ('samples',) mesh SPANNING two jax.distributed processes — the
     per-level psums and drain all-gathers cross the process boundary
-    (ICI/DCN on hardware) — and byte-compare each process's full output
+    (the interconnect and network on hardware) — and byte-compare each process's full output
     against the oracle."""
     port = 57741
     env = {**os.environ, "PYTHONPATH": REPO}

@@ -2,7 +2,7 @@
 
 conftest forces 8 virtual CPU devices; the meshes here exercise the real
 ('prefix', 'samples') shardings — psum sample merge + disjoint prefix
-partitions — that run over ICI on hardware.
+partitions — that run across real devices on hardware.
 """
 
 import glob
